@@ -1,9 +1,9 @@
-"""libyafaray_tpu: a TPU-native differentiable Monte Carlo path tracer.
+"""libyafaray_tpu: a wavefront differentiable Monte Carlo path tracer.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of libYafaRay
-(studied at /root/reference, see SURVEY.md) — wavefront integrators over
+(see SURVEY.md) — wavefront integrators over
 SoA scene tables, LBVH ray traversal, masked vectorized BSDF/light tables,
-counter-based QMC sampling, scatter-add film, shard_map multi-chip scaling,
+counter-based QMC sampling, scatter-add film, shard_map multi-device scaling,
 and differentiable rendering throughout.
 """
 from . import color, film, io, params, sampler

@@ -1,9 +1,9 @@
 """Block accelerator: morton-sorted triangle blocks + dense AABB culling.
 
-The TPU-native production replacement for the reference's SAH kd-tree
-traversal (src/accelerator/accelerator_kdtree.cc:639-721). Instead of a
-per-ray pointer-chasing descent (which on TPU degenerates into serial
-scalar gathers), primitives are morton-sorted and grouped into CONTIGUOUS
+The production replacement for the reference's SAH kd-tree traversal
+(src/accelerator/accelerator_kdtree.cc:639-721). Instead of a per-ray
+pointer-chasing descent (divergent per-lane scalar gathers in a
+wavefront), primitives are morton-sorted and grouped into CONTIGUOUS
 blocks of B triangles (spatially coherent by construction); a query then
 
   1. slab-tests every ray against every block AABB in one dense [N, C]
@@ -15,11 +15,9 @@ blocks of B triangles (spatially coherent by construction); a query then
      best hit.
 
 Compared to a per-node BVH walk this trades ~B/2 extra triangle tests per
-step for B-wide gathers and zero divergence — a large win on TPU where
-gathers, not FLOPs, bound traversal (measured ~60x brute force on a 200k
-triangle scene; see PARITY.md §2.5). The block size auto-scales so the
-block count stays <= MAX_BLOCKS (the [N, C] table stays small and argmin
-cheap).
+step for B-wide gathers and zero divergence. The block size auto-scales
+so the block count stays <= MAX_BLOCKS (the [N, C] table stays small and
+argmin cheap).
 
 Spheres are intersected densely after the block loop (scenes carry few
 analytic spheres; same treatment as the brute path).
@@ -31,7 +29,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..math import vec
 from ..scene_types import Geometry
@@ -40,9 +38,7 @@ from .morton import morton3d
 Array = jax.Array
 
 MAX_BLOCKS = 4096      # cap on C so the per-chunk [N, C] key table is small
-MIN_BLOCK = 128        # minimum triangles per block (gather amortization;
-                       # measured on TPU over a 205k-tri mesh: B=128 gives
-                       # 0.46 Mrays/s vs 0.20 @64 and 0.33 @256)
+MIN_BLOCK = 128        # minimum triangles per block (gather amortization)
 RAY_CHUNK = 4096       # rays per lax.map chunk (bounds the key table to
                        # RAY_CHUNK*MAX_BLOCKS*4B = 64 MB)
 
@@ -50,9 +46,8 @@ RAY_CHUNK = 4096       # rays per lax.map chunk (bounds the key table to
 @struct.dataclass
 class BlockAccel:
     """Morton-block tables, laid out [C, B, ...] so a block fetch is ONE
-    row-gather of a contiguous slice (the whole point: TPU gathers are
-    slice-granular — fetching a block as a 9*B-float row costs ~1 gather,
-    not 3*B scalar gathers)."""
+    row-gather of a contiguous slice (a 9*B-float row, not 3*B scalar
+    gathers)."""
     geo: Array       # f32[C, B, 9] v0|v1|v2 per triangle (time step 0)
     meta: Array      # i32[C, B, 2] (original face index | -1, visibility)
     bmin: Array      # f32[C, 3] block AABB (union over all time steps)
@@ -62,16 +57,9 @@ class BlockAccel:
     # lies inside the control hull, so culling stays conservative.
     geo_t1: Optional[Array] = None   # f32[C, B, 9]
     geo_t2: Optional[Array] = None   # f32[C, B, 9] (quadratic only)
-    # component-major packed table f32[C, 16, B] (morton order) for the
-    # tile-wavefront Pallas traversal (accel/tiles.py): tab[j] is block
-    # j's dense (16, B) slice. Rows: 0-8 v0|v1|v2 components, 9 cam-vis,
-    # 10 shadow-vis, 11 original prim id (-2 padding).
-    tab: Optional[Array] = None      # f32[C, 16, B]
-    tab_t1: Optional[Array] = None   # f32[C, 16, B] motion keyframe verts
-    tab_t2: Optional[Array] = None   # f32[C, 16, B] (quadratic bspline)
     # TRUE instancing (None when the scene has no live instances): the C
     # VIRTUAL blocks indirect into C_phys PHYSICAL table rows. bmin/bmax
-    # are per-VIRTUAL-block world AABBs; geo/meta/tab rows are physical
+    # are per-VIRTUAL-block world AABBs; geo/meta rows are physical
     # (object space for instanced bases) and shared across instances.
     # Rays are transformed object<-world per block at query time.
     blk_base: Optional[Array] = None   # i32[C] physical row of block j
@@ -108,14 +96,13 @@ def build_blocks(geom: Geometry) -> BlockAccel:
     t = _tables_for(geom, None, b)
     return BlockAccel(geo=t["geo"], meta=t["meta"], bmin=t["bmin"],
                       bmax=t["bmax"], geo_t1=t["geo_t1"], geo_t2=t["geo_t2"],
-                      tab=t["tab"], tab_t1=t["tab_t1"], tab_t2=t["tab_t2"],
                       block_size=b, num_blocks=t["c"])
 
 
 def _tables_for(geom: Geometry, face_ids: Optional[Array], b: int,
                 vis_value: Optional[int] = None) -> dict:
     """Morton-sorted block tables for a face subset (None = all physical
-    faces). Prim ids in meta/tab are the GLOBAL physical face ids.
+    faces). Prim ids in meta are the GLOBAL physical face ids.
     `vis_value` overrides the gathered per-face visibility (instance
     tables of an is_base_object base, whose static faces are vis-0)."""
     if face_ids is None:
@@ -187,28 +174,8 @@ def _tables_for(geom: Geometry, face_ids: Optional[Array], b: int,
             bmin = jnp.minimum(bmin, m2)
             bmax = jnp.maximum(bmax, x2)
     meta = jnp.stack([prim, vis.astype(jnp.int32)], axis=-1).reshape(c, b, 2)
-
-    vis_cb = vis.reshape(c, b)
-    prim_cb = prim.reshape(c, b)
-
-    def comp_table(g9):
-        """Component-major [C, 16, B] table from a [C, B, 9] vertex table.
-        Each block slice is a dense (16, B) f32 tile — (16, 128)-aligned,
-        so the tiles kernel's block DMA is one contiguous ~8 KB fetch."""
-        g = jnp.where(jnp.isfinite(g9), g9, 0.0)  # padding: degenerate tri
-        tab3 = jnp.zeros((c, 16, b), jnp.float32)
-        tab3 = tab3.at[:, 0:9, :].set(jnp.swapaxes(g, 1, 2))
-        tab3 = tab3.at[:, 9, :].set(((vis_cb & 1) != 0).astype(jnp.float32))
-        tab3 = tab3.at[:, 10, :].set(((vis_cb & 2) != 0).astype(jnp.float32))
-        tab3 = tab3.at[:, 11, :].set(jnp.where(
-            prim_cb >= 0, prim_cb.astype(jnp.float32), -2.0))
-        return tab3
-
-    tab = comp_table(geo)
-    tab_t1 = comp_table(geo_t1) if geo_t1 is not None else None
-    tab_t2 = comp_table(geo_t2) if geo_t2 is not None else None
     return dict(geo=geo, meta=meta, bmin=bmin, bmax=bmax, geo_t1=geo_t1,
-                geo_t2=geo_t2, tab=tab, tab_t1=tab_t1, tab_t2=tab_t2, c=int(c))
+                geo_t2=geo_t2, c=int(c))
 
 
 def _build_blocks_instanced(geom: Geometry) -> BlockAccel:
@@ -250,9 +217,7 @@ def _build_blocks_instanced(geom: Geometry) -> BlockAccel:
 
     geo = cat("geo")
     meta = cat("meta")
-    tab = cat("tab")
     geo_t1, geo_t2 = cat("geo_t1"), cat("geo_t2")
-    tab_t1, tab_t2 = cat("tab_t1"), cat("tab_t2")
     phys_bmin = jnp.concatenate([p["bmin"] for p in parts], axis=0)
     phys_bmax = jnp.concatenate([p["bmax"] for p in parts], axis=0)
 
@@ -291,7 +256,7 @@ def _build_blocks_instanced(geom: Geometry) -> BlockAccel:
         geo=geo, meta=meta,
         bmin=jnp.asarray(np.concatenate(v_bmin, axis=0)),
         bmax=jnp.asarray(np.concatenate(v_bmax, axis=0)),
-        geo_t1=geo_t1, geo_t2=geo_t2, tab=tab, tab_t1=tab_t1, tab_t2=tab_t2,
+        geo_t1=geo_t1, geo_t2=geo_t2,
         blk_base=jnp.asarray(np.concatenate(blk_base)),
         blk_minv=jnp.asarray(np.concatenate(blk_minv)),
         id_delta=jnp.asarray(np.concatenate(id_delta)),
@@ -368,9 +333,11 @@ def _query_chunk(acc: BlockAccel, o, d, t_min, t_max, exclude,
         if acc.inv_rows is not None:
             # instanced block: transform the ray object<-world; leaving the
             # direction unnormalized preserves the world t parameterization
+            # (elementwise multiply-sums: a batched matvec as a dot may run
+            # in TF32 on a GPU, and hit distances need full f32)
             mv = acc.inv_rows[acc.blk_minv[j]].reshape(-1, 3, 4)
-            oq = jnp.einsum("nij,nj->ni", mv[:, :, :3], o) + mv[:, :, 3]
-            dq = jnp.einsum("nij,nj->ni", mv[:, :, :3], d)
+            oq = jnp.sum(mv[:, :, :3] * o[:, None, :], axis=-1) + mv[:, :, 3]
+            dq = jnp.sum(mv[:, :, :3] * d[:, None, :], axis=-1)
         else:
             oq, dq = o, d
         hit, t, u, v = moller_trumbore(oq[:, None], dq[:, None], gv0, gv1,
@@ -399,39 +366,21 @@ def _query_chunk(acc: BlockAccel, o, d, t_min, t_max, exclude,
 
 def query(acc: BlockAccel, geom: Geometry, o, d, t_min, t_max, exclude,
           vis_bit: int, any_hit: bool, time=None):
-    """Full-wavefront query: on TPU (static scenes) the tile-wavefront
-    Pallas kernel (accel/tiles.py) carries traversal; otherwise pads +
-    reshapes into RAY_CHUNK chunks mapped sequentially (bounds the
-    [chunk, C] key table). Either way the dense sphere pass is appended."""
-    from ..ops.intersect import intersect_sphere
+    """Full-wavefront query: pads + reshapes into RAY_CHUNK chunks mapped
+    sequentially through the block loop (bounds the [chunk, C] key
+    table), then appends the dense sphere pass."""
     n = o.shape[0]
-    tiles_ok = False
-    motion_ok = True
-    if time is not None:
-        # motion blur rides the VMEM-resident kernel (per-ray b-spline
-        # vertex blend in-kernel); scenes too large for residency fall
-        # back to the jnp block loop below
-        from .tiles import VMEM_TAB_BUDGET
-        n_tabs = 3 if acc.tab_t2 is not None else 2
-        motion_ok = (acc.tab_t1 is not None
-                     and acc.tab.size * 4 * n_tabs <= VMEM_TAB_BUDGET)
-    if acc.tab is not None and motion_ok:
-        from .tiles import use_tiles
-        tiles_ok = use_tiles()
     chunk = min(RAY_CHUNK, max(256, n))
     pad = (-n) % chunk
     sorted_rays = False
-    if n > chunk or (tiles_ok and n > 256):
+    if n > chunk:
         # Sort rays by (direction octant, coarse origin morton, direction
-        # morton): each chunk/tile then has BOTH a tight origin box and a
-        # tight direction cone, so the tile frustum overlaps few block
-        # AABBs (the TPU analogue of the packet coherence the reference
-        # gets for free from per-pixel recursion order). Direction bits
-        # matter most for pinhole cameras — all origins coincide, and
-        # without them a tile is a raster run spanning the full FOV in x.
-        # (origin-first keys measured 2-3x WORSE for secondaries: without
-        # direction clustering the candidate union is unbounded along
-        # each ray — r4 sweep.)
+        # morton): each chunk then has BOTH a tight origin box and a tight
+        # direction cone, so its rays enter few blocks in common (the
+        # wavefront analogue of the packet coherence the reference gets
+        # for free from per-pixel recursion order). Direction bits matter
+        # most for pinhole cameras — all origins coincide, and without
+        # them a chunk is a raster run spanning the full FOV in x.
         smin = jnp.min(acc.bmin, axis=0)
         sinv = 1.0 / jnp.maximum(jnp.max(acc.bmax, axis=0) - smin, 1e-12)
         rel = jnp.clip((o - smin) * sinv, 0.0, 1.0)
@@ -441,16 +390,13 @@ def query(acc: BlockAccel, geom: Geometry, o, d, t_min, t_max, exclude,
                 | ((d[:, 1] >= 0).astype(jnp.uint32) << 1)
                 | ((d[:, 2] >= 0).astype(jnp.uint32) << 2))
         # dead rays (empty t-range, e.g. terminated paths / gated shadow
-        # rays) sort to the END: their tiles get zero candidates and the
-        # traversal skips them at ~zero cost
+        # rays) sort to the END: their chunks exit the loop at once
         dead = (t_max < t_min).astype(jnp.uint32)
         key = ((dead << jnp.uint32(30)) | (oct_ << jnp.uint32(27))
                | (okey << jnp.uint32(15)) | dkey)
-        # ONE variadic sort carries the whole ray payload with the key:
-        # TPU 1-D gathers run ~600x under HBM bandwidth (measured 6.6 ms
-        # per f32[518k] gather on v5e), so argsort + x[order] around each
-        # traversal cost more than the traversal itself; lax.sort's
-        # payload channels sort at full throughput instead
+        # ONE variadic sort carries the whole ray payload with the key
+        # (and a second one restores the order), instead of argsort plus
+        # ten 1-D gathers each way
         iota = jnp.arange(n, dtype=jnp.int32)
         payload = [iota, o[:, 0], o[:, 1], o[:, 2],
                    d[:, 0], d[:, 1], d[:, 2], t_min, t_max, exclude]
@@ -464,6 +410,7 @@ def query(acc: BlockAccel, geom: Geometry, o, d, t_min, t_max, exclude,
         if time is not None:
             time = out[11]
         sorted_rays = True
+
     def unsort(bt, bp, bu, bv):
         """Restore original ray order: a second variadic sort keyed by the
         carried original index (gather-free, see the sort note above)."""
@@ -472,23 +419,6 @@ def query(acc: BlockAccel, geom: Geometry, o, d, t_min, t_max, exclude,
         _, bt, bp, bu, bv = jax.lax.sort(
             (orig_idx, bt, bp, bu, bv), dimension=0, num_keys=1)
         return bt, bp, jnp.stack([bu, bv], axis=-1)
-
-    if tiles_ok:
-        from .tiles import tiles_traverse
-        bt, bp, bu, bv = tiles_traverse(
-            acc.tab, acc.bmin, acc.bmax, o, d, t_min, t_max, exclude,
-            blk_base=acc.blk_base, blk_minv=acc.blk_minv,
-            id_delta=acc.id_delta, inv_rows=acc.inv_rows,
-            tab_t1=acc.tab_t1 if time is not None else None,
-            tab_t2=acc.tab_t2 if time is not None else None,
-            time=time,
-            shadow=(vis_bit == 2), any_hit=any_hit)
-        # sphere pass runs in SORTED order (order-independent), then one
-        # variadic sort restores the original ray order
-        bt, bp, buv = _sphere_pass(geom, o, d, t_min, t_max, exclude,
-                                   vis_bit, bt, bp,
-                                   jnp.stack([bu, bv], axis=-1))
-        return unsort(bt, bp, buv[..., 0], buv[..., 1])
 
     def padded(x, fill):
         return jnp.concatenate(

@@ -1,6 +1,6 @@
 """LBVH: Morton-code linear BVH build + wavefront stack traversal.
 
-TPU-native replacement for the reference's SAH kd-tree accelerators
+Wavefront replacement for the reference's SAH kd-tree accelerators
 (src/accelerator/accelerator_kdtree.cc, accelerator_kdtree_multi_thread.cc):
 instead of a CPU-recursive SAH build and a pointer-chasing traversal loop
 (kdtree hot loop accelerator_kdtree.cc:639-721), we build a Karras-2012

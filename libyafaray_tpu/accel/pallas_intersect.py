@@ -1,34 +1,33 @@
-"""Pallas TPU kernel: fused Möller-Trumbore closest-hit over ray tiles.
+"""Pallas (Triton) kernel: fused Möller-Trumbore brute scan for the GPU.
 
 The jnp brute-force intersect (ops/intersect.py `_brute_closest`, the
 AcceleratorSimpleTest analogue — src/accelerator/accelerator_simple_test.cc)
-is HBM-bound: XLA materializes the [N_rays, C, 3] cross-product
-intermediates, so a 518k-ray x 128-tri query moves gigabytes. This kernel
-keeps the whole [TRI_CHUNK, RAY_TILE] working set in VMEM and streams only
-rays in / hit records out (~24 B/ray each way), making the query
-VPU-compute-bound as it should be.
+materialises [N_rays, chunk] t/u/v per triangle chunk, then an argmin and
+three gathers. This kernel gives each ray one lane and walks the whole
+triangle table with the best t / prim / u / v in registers: rays are read
+once and hit records written once (~40 B/ray in, 16 B/ray out), and no
+[N, chunk] intermediate ever reaches device memory.
 
-Layout (all component-major so tiles are (8,128)-aligned f32):
+Layout:
   rays  f32[16, N]: rows 0-2 origin, 3-5 direction, 6 t_min, 7 t_max,
                     8 exclude-prim-id (as f32; exact for ids < 2^24),
-                    9 shutter time (motion blur lerp), rest padding.
-  tris  f32[C, 16]: cols 0-8 v0|v1|v2, col 9 camera-vis, col 10 shadow-vis
-                    (0/1 floats), col 11 prim id as f32,
-                    cols 12.. unused. C padded to TRI_CHUNK with vis=0.
-  tris_t1 (optional) f32[C, 16]: cols 0-8 = t=1 keyframe vertices for
-                    2-keyframe motion blur (BsTrianglePrimitive analogue,
-                    src/geometry/primitive/primitive_triangle_bspline.cc).
-  out   f32[8, N]: rows 0 best_t (t_max if miss), 1 best prim id (-1 miss),
-                   2-3 barycentric u,v.
+                    9 shutter time (motion blur), rest padding.
+                    Component-major, so a block's loads are coalesced.
+  tris  f32[F, 16]: cols 0-8 v0|v1|v2, col 9 camera-vis, col 10 shadow-vis
+                    (0/1 floats), col 11 prim id as f32, cols 12.. unused.
+                    Every lane of a block reads the same triangle, so the
+                    row is served from L1.
+  tris_t1 / tris_t2 (optional) f32[F, 16]: the motion keyframes' vertices
+                    (linear lerp with t1 only, the reference's quadratic
+                    b-spline with t2 — primitive_triangle_bspline.cc:40-44).
 
-Grid: one program per RAY_TILE of rays; inner fori_loop over TRI_CHUNK
-slabs of the (VMEM-resident) triangle table. Intended for scenes whose
-triangle table fits VMEM: the dispatch gate is PALLAS_MAX_TRIS = 16384 in
-ops/intersect.py (a 16k-row table is 1 MiB, 2 MiB with the motion-blur
-keyframe, plus ~15 live [TRI_CHUNK, RAY_TILE] f32 loop intermediates
-~= 4 MiB — comfortably inside the ~16 MiB VMEM budget). Larger scenes go
-through the block accelerator (accel/blocks.py), whose inner loop reuses
-this math per block.
+Grid: one program per RAY_BLOCK rays. Triangles are visited in index
+order and a hit replaces the best only when strictly closer, so on an
+exact t tie the lowest prim id wins — the jnp scan's argmin tie-break.
+Shadow (any-hit) queries run the same closest-hit loop: an early exit
+once every lane of a block has hit (a while loop with a block-wide
+reduction per triangle) measured slower on an H100 (700 W) at both 36 and
+2,047 triangles than visiting every triangle.
 """
 from __future__ import annotations
 
@@ -37,65 +36,50 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-RAY_TILE = 1024     # rays per grid step (8 x 128 lanes; also the XLA 1-D
-                    # f32 tile T(1024), required for the 1-D outputs)
-TRI_CHUNK = 128     # triangles per inner-loop slab (sublanes: 16 x 8)
+RAY_BLOCK = 128     # rays per program: one lane each (4 warps)
+NUM_WARPS = 4
+NUM_STAGES = 1      # the triangle loop carries no pipelined loads
 
 EPS_DET = 1e-10
 
 
-def _mt_kernel(rays_ref, tris_ref, t_ref, id_ref, u_ref, v_ref, *,
-               n_chunks: int, chunk: int,
-               vis_col: int, motion: int, tris_t1_ref=None,
-               tris_t2_ref=None):
-    """One ray tile vs the whole triangle table."""
-    ox = rays_ref[0:1, :]
-    oy = rays_ref[1:2, :]
-    oz = rays_ref[2:3, :]
-    dx = rays_ref[3:4, :]
-    dy = rays_ref[4:5, :]
-    dz = rays_ref[5:6, :]
-    t_min = rays_ref[6:7, :]
-    t_max = rays_ref[7:8, :]
-    excl = rays_ref[8:9, :]
-    if motion:
-        tt = rays_ref[9:10, :]
+def _mt_kernel(rays_ref, tris_ref, *refs, n_tris: int, vis_col: int,
+               motion: int):
+    """One block of rays against the whole triangle table."""
+    tris_t1_ref = refs[0] if motion >= 1 else None
+    tris_t2_ref = refs[1] if motion == 2 else None
+    t_ref, id_ref, u_ref, v_ref = refs[motion:]
+    ox, oy, oz = rays_ref[0, :], rays_ref[1, :], rays_ref[2, :]
+    dx, dy, dz = rays_ref[3, :], rays_ref[4, :], rays_ref[5, :]
+    t_min, t_max, excl = rays_ref[6, :], rays_ref[7, :], rays_ref[8, :]
+    tt = rays_ref[9, :] if motion else None
 
-    def chunk_body(i, carry):
+    def vert(i, j):
+        c = tris_ref[i, j]
+        if motion == 2:
+            tc = 1.0 - tt
+            return (c * (tc * tc) + tris_t1_ref[i, j] * (2.0 * tt * tc)
+                    + tris_t2_ref[i, j] * (tt * tt))
+        if motion == 1:
+            return c * (1.0 - tt) + tris_t1_ref[i, j] * tt
+        return c
+
+    def test(i, carry):
         best_t, best_id, best_u, best_v = carry
-        base = i * chunk
-        tr = tris_ref[pl.ds(base, chunk), :]
-
-        def col(j):
-            c = tr[:, j:j + 1]                       # [C,1]
-            if motion == 2:
-                # quadratic b-spline over 3 control points (the reference's
-                # BsTrianglePrimitive, primitive_triangle_bspline.cc:40-44)
-                c1 = tris_t1_ref[pl.ds(base, chunk), j:j + 1]
-                c2 = tris_t2_ref[pl.ds(base, chunk), j:j + 1]
-                tc = 1.0 - tt
-                return c * (tc * tc) + c1 * (2.0 * tt * tc) + c2 * (tt * tt)
-            if motion == 1:
-                c1 = tris_t1_ref[pl.ds(base, chunk), j:j + 1]
-                return c * (1.0 - tt) + c1 * tt      # [C,N] per-ray lerp
-            return c
-        ax, ay, az = col(0), col(1), col(2)
-        bx, by, bz = col(3), col(4), col(5)
-        cx, cy, cz = col(6), col(7), col(8)
-        vis = tr[:, vis_col:vis_col + 1]
-        pid = tr[:, 11:12]
-
-        e1x, e1y, e1z = bx - ax, by - ay, bz - az
-        e2x, e2y, e2z = cx - ax, cy - ay, cz - az
-        # pvec = d x e2   ([C, N] each component)
+        ax, ay, az = vert(i, 0), vert(i, 1), vert(i, 2)
+        e1x, e1y, e1z = vert(i, 3) - ax, vert(i, 4) - ay, vert(i, 5) - az
+        e2x, e2y, e2z = vert(i, 6) - ax, vert(i, 7) - ay, vert(i, 8) - az
+        vis = tris_ref[i, vis_col]
+        pid = tris_ref[i, 11]
+        # pvec = d x e2
         pvx = dy * e2z - dz * e2y
         pvy = dz * e2x - dx * e2z
         pvz = dx * e2y - dy * e2x
         det = e1x * pvx + e1y * pvy + e1z * pvz
         ok = jnp.abs(det) > EPS_DET
-        inv_det = jnp.where(ok, 1.0, 0.0) / jnp.where(ok, det, 1.0)
+        inv_det = jnp.where(ok, 1.0 / jnp.where(ok, det, 1.0), 0.0)
         # tvec = o - v0
         tvx, tvy, tvz = ox - ax, oy - ay, oz - az
         u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
@@ -106,190 +90,84 @@ def _mt_kernel(rays_ref, tris_ref, t_ref, id_ref, u_ref, v_ref, *,
         v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
         t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
         hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-               & (t > t_min) & (t <= best_t)
-               & (vis > 0.5) & (pid != excl))
-        t = jnp.where(hit, t, jnp.inf)
-        # row-reduce over the triangle axis
-        tc = jnp.min(t, axis=0, keepdims=True)            # [1, N]
-        better = tc < best_t
-        # On an exact t tie within a chunk pick ONE winner — the lowest prim
-        # id — and take u/v from that same triangle, matching the jnp scan
-        # oracle's argmin (first-index) tie-break (ADVICE r1).
-        win = t <= tc
-        cid = jnp.min(jnp.where(win, pid, jnp.inf), axis=0, keepdims=True)
-        sel = win & (pid == cid)
-        best_id = jnp.where(better, cid, best_id)
-        best_u = jnp.where(better, jnp.max(jnp.where(sel, u, -jnp.inf),
-                                           axis=0, keepdims=True), best_u)
-        best_v = jnp.where(better, jnp.max(jnp.where(sel, v, -jnp.inf),
-                                           axis=0, keepdims=True), best_v)
-        best_t = jnp.where(better, tc, best_t)
-        return best_t, best_id, best_u, best_v
+               & (t > t_min) & (t < best_t) & (vis > 0.5) & (pid != excl))
+        return (jnp.where(hit, t, best_t), jnp.where(hit, pid, best_id),
+                jnp.where(hit, u, best_u), jnp.where(hit, v, best_v))
 
     init = (t_max, jnp.full_like(t_max, -1.0), jnp.zeros_like(t_max),
             jnp.zeros_like(t_max))
     best_t, best_id, best_u, best_v = jax.lax.fori_loop(
-        0, n_chunks, chunk_body, init)
-    # four separate 1-D outputs: slicing [0:n] from a 1-D result is a cheap
-    # contiguous copy, whereas row-slicing a packed [8, npad] (8,128)-tiled
-    # output costs ~2x the whole kernel in XLA re-layout copies
-    t_ref[:] = best_t[0]
-    id_ref[:] = best_id[0]
-    u_ref[:] = best_u[0]
-    v_ref[:] = best_v[0]
-
-
-def table_rows(f: int) -> int:
-    """Padded row count for an f-triangle table: small scenes pad only to a
-    32-row slab (sublane-aligned) instead of a full 128-row chunk, so e.g. a
-    38-tri cornell tests 64 rows per ray instead of 128; big scenes use
-    128-row chunks for the fori_loop."""
-    if f <= TRI_CHUNK:
-        return max(32, -(-f // 32) * 32)
-    return -(-f // TRI_CHUNK) * TRI_CHUNK
+        0, n_tris, test, init)
+    t_ref[:] = best_t
+    id_ref[:] = best_id
+    u_ref[:] = best_u
+    v_ref[:] = best_v
 
 
 def pack_tris(v0, v1, v2, face_vis):
-    """Build the f32[Cpad, 16] triangle table (done once at scene compile)."""
+    """Build the f32[F, 16] triangle table."""
     f = v0.shape[0]
-    c = table_rows(f)
-    tab = jnp.zeros((c, 16), jnp.float32)
-    tab = tab.at[:f, 0:3].set(v0)
-    tab = tab.at[:f, 3:6].set(v1)
-    tab = tab.at[:f, 6:9].set(v2)
-    tab = tab.at[:f, 9].set(((face_vis & 1) != 0).astype(jnp.float32))
-    tab = tab.at[:f, 10].set(((face_vis & 2) != 0).astype(jnp.float32))
-    tab = tab.at[:f, 11].set(jnp.arange(f, dtype=jnp.float32))
-    tab = tab.at[f:, 11].set(-2.0)
-    return tab
+    vis = face_vis.astype(jnp.int32)
+    return jnp.concatenate([
+        v0, v1, v2,
+        ((vis & 1) != 0).astype(jnp.float32)[:, None],
+        ((vis & 2) != 0).astype(jnp.float32)[:, None],
+        jnp.arange(f, dtype=jnp.float32)[:, None],
+        jnp.zeros((f, 4), jnp.float32)], axis=1)
+
+
+def pack_rays(o, d, t_min, t_max, exclude, time=None):
+    """Component-major f32[16, Npad] ray table (Npad a RAY_BLOCK multiple;
+    padded rays get an empty t-range)."""
+    n = o.shape[0]
+    npad = -(-n // RAY_BLOCK) * RAY_BLOCK
+    cols = [o.T, d.T, t_min[None], t_max[None],
+            exclude.astype(jnp.float32)[None],
+            (jnp.zeros((1, n), jnp.float32) if time is None
+             else jnp.asarray(time, jnp.float32)[None]),
+            jnp.zeros((6, n), jnp.float32)]
+    rays = jnp.concatenate(cols, axis=0)
+    if npad != n:
+        fill = jnp.zeros((16, npad - n), jnp.float32).at[7].set(-1.0)
+        rays = jnp.concatenate([rays, fill], axis=1)
+    return rays
 
 
 @functools.partial(jax.jit, static_argnames=("shadow", "interpret"))
-def mt_closest(tris, o, d, t_min, t_max, exclude, time=None,
-               tris_t1=None, tris_t2=None, shadow: bool = False,
-               interpret: bool = False):
-    """Closest-hit of rays against a packed triangle table.
+def mt_query(tris, o, d, t_min, t_max, exclude, time=None, tris_t1=None,
+             tris_t2=None, *, shadow: bool = False, interpret: bool = False):
+    """Closest hit of rays against a packed triangle table.
 
-    Args: tris f32[C,16] (pack_tris); o,d f32[N,3]; t_min/t_max/exclude [N];
+    Args: tris f32[F,16] (pack_tris); o,d f32[N,3]; t_min/t_max/exclude [N];
     optional time f32[N] + tris_t1 (linear motion blur) + tris_t2
-    (quadratic b-spline motion blur with 3 control points).
-    Returns (t f32[N], prim i32[N] (-1 = miss), u, v).
+    (quadratic b-spline motion blur with 3 control points); `shadow`
+    tests the shadow-visibility column instead of the camera one.
+    Returns (t f32[N] (t_max on a miss), prim i32[N] (-1 = miss), u, v).
     """
     n = o.shape[0]
-    c = tris.shape[0]
-    chunk = c if c <= TRI_CHUNK else TRI_CHUNK
-    if c % chunk != 0 or c % 32 != 0:
-        raise ValueError(
-            f"triangle table rows ({c}) must be a multiple of 32 and, above "
-            f"{TRI_CHUNK}, of TRI_CHUNK ({TRI_CHUNK}); "
-            "use pack_tris to build the table")
-    npad = -(-n // RAY_TILE) * RAY_TILE
-    rays = jnp.zeros((16, npad), jnp.float32)
-    rays = rays.at[0:3, :n].set(o.T)
-    rays = rays.at[3:6, :n].set(d.T)
-    rays = rays.at[6, :n].set(t_min)
-    rays = rays.at[7, :n].set(t_max)
-    rays = rays.at[7, n:].set(-1.0)          # padded rays: empty range
-    rays = rays.at[8, :n].set(exclude.astype(jnp.float32))
     motion = 0
     if time is not None and tris_t1 is not None:
         motion = 2 if tris_t2 is not None else 1
-    if motion:
-        rays = rays.at[9, :n].set(time)
-
+    rays = pack_rays(o, d, t_min, t_max, exclude,
+                     time if motion else None)
+    npad = rays.shape[1]
     kernel = functools.partial(
-        _mt_kernel, n_chunks=c // chunk, chunk=chunk,
-        vis_col=10 if shadow else 9, motion=motion)
-    tab_spec = pl.BlockSpec((c, 16), lambda i: (0, 0),
-                            memory_space=pltpu.VMEM)
-    if motion == 2:
-        body = lambda r, t0, t1, t2, *outs: kernel(
-            r, t0, *outs, tris_t1_ref=t1, tris_t2_ref=t2)
-        in_specs = [
-            pl.BlockSpec((16, RAY_TILE), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            tab_spec, tab_spec, tab_spec,
-        ]
-        args = (rays, tris, tris_t1, tris_t2)
-    elif motion == 1:
-        body = lambda r, t0, t1, *outs: kernel(r, t0, *outs, tris_t1_ref=t1)
-        in_specs = [
-            pl.BlockSpec((16, RAY_TILE), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            tab_spec, tab_spec,
-        ]
-        args = (rays, tris, tris_t1)
-    else:
-        body = lambda r, t0, *outs: kernel(r, t0, *outs)
-        in_specs = [
-            pl.BlockSpec((16, RAY_TILE), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((c, 16), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ]
-        args = (rays, tris)
-    vec_spec = pl.BlockSpec((RAY_TILE,), lambda i: (i,),
-                            memory_space=pltpu.VMEM)
+        _mt_kernel, n_tris=tris.shape[0], vis_col=10 if shadow else 9,
+        motion=motion)
+    tables = (tris, tris_t1, tris_t2)[:motion + 1]
+    whole = pl.BlockSpec(memory_space=pl.ANY)
+    vec_spec = pl.BlockSpec((RAY_BLOCK,), lambda i: (i,))
     vec_shape = jax.ShapeDtypeStruct((npad,), jnp.float32)
     out_t, out_id, out_u, out_v = pl.pallas_call(
-        body,
-        grid=(npad // RAY_TILE,),
-        in_specs=in_specs,
-        out_specs=(vec_spec, vec_spec, vec_spec, vec_spec),
-        out_shape=(vec_shape, vec_shape, vec_shape, vec_shape),
-        cost_estimate=pl.CostEstimate(
-            flops=45 * npad * c, bytes_accessed=(16 + 4 * 4) * 4 * npad,
-            transcendentals=0),
+        kernel,
+        grid=(npad // RAY_BLOCK,),
+        in_specs=[pl.BlockSpec((16, RAY_BLOCK), lambda i: (0, i))]
+        + [whole] * len(tables),
+        out_specs=(vec_spec,) * 4,
+        out_shape=(vec_shape,) * 4,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
-    )(*args)
+        name="mt_query",
+    )(rays, *tables)
     return out_t[:n], out_id[:n].astype(jnp.int32), out_u[:n], out_v[:n]
-
-
-_PALLAS_STATUS: bool | None = None
-
-
-def _probe() -> bool:
-    """Compile + run a one-tile query on the live backend and check the
-    result. Any compile/runtime failure or wrong answer disables the kernel
-    for the process, so a Mosaic miscompile degrades to the jnp scan path
-    instead of crashing or silently corrupting renders (ADVICE r1, medium)."""
-    import jax
-    if jax.default_backend() != "tpu":
-        return False
-    try:
-        import numpy as np
-        v0 = jnp.asarray([[0.0, -1.0, -1.0]], jnp.float32)
-        v1 = jnp.asarray([[0.0, 1.0, -1.0]], jnp.float32)
-        v2 = jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32)
-        tris = pack_tris(v0, v1, v2, jnp.asarray([3], jnp.int32))
-        o = jnp.asarray([[-1.0, 0.0, 0.0]], jnp.float32)
-        d = jnp.asarray([[1.0, 0.0, 0.0]], jnp.float32)
-        t, p, _, _ = mt_closest(tris, o, d,
-                                jnp.asarray([1e-4], jnp.float32),
-                                jnp.asarray([1e9], jnp.float32),
-                                jnp.asarray([-1], jnp.int32))
-        t0, p0 = float(np.asarray(t)[0]), int(np.asarray(p)[0])
-        if not (abs(t0 - 1.0) < 1e-4 and p0 == 0):
-            raise RuntimeError(f"probe mismatch: t={t0} prim={p0}")
-        return True
-    except Exception as exc:  # pragma: no cover - depends on hw/toolchain
-        import warnings
-        warnings.warn("pallas intersect kernel disabled, falling back to the "
-                      f"jnp scan path (probe failed: {exc})")
-        return False
-
-
-def use_pallas() -> bool:
-    """True when the compiled Pallas kernel should carry intersections.
-    Memoized runtime probe rather than a bare backend check. The probe is
-    usually reached while TRACING the caller's jit; JAX trace contexts are
-    thread-local, so running it in a worker thread executes it eagerly on
-    the real device instead of entangling it with the outer trace."""
-    global _PALLAS_STATUS
-    if _PALLAS_STATUS is None:
-        import threading
-        result = []
-        th = threading.Thread(target=lambda: result.append(_probe()))
-        th.start()
-        th.join()
-        _PALLAS_STATUS = bool(result and result[0])
-    return _PALLAS_STATUS

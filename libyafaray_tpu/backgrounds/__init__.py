@@ -14,7 +14,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from .. import params as P
 from ..math import vec
@@ -257,7 +257,8 @@ def _eval_darksky(ds: DarkSky, d: Array) -> Array:
         from .. import color as C
         rgb = C.xyz_to_linear(xyz)
     else:
-        rgb = xyz @ jnp.asarray(_CIE_E_MAT).T
+        rgb = jnp.matmul(xyz, jnp.asarray(_CIE_E_MAT).T,
+                         precision=jax.lax.Precision.HIGHEST)
     # the reference darksky HARDCODES gamma encoding (v^(1/2.2)) and
     # clampRgb01 in its ColorConv — the clamp_rgb/gamma_enc getParams are
     # commented out (background_darksky.cc:230-232, color_conversion.h:85)

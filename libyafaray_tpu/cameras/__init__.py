@@ -297,7 +297,8 @@ def project(cam: Camera, p: Array):
         ez = jnp.asarray([0.0, 0.0, 1.0], jnp.float32)
         m = jnp.stack([cam.cam_x, -ez, cam.cam_z * cam.focal],
                       axis=-1)                      # [3,3] columns
-        coef = rel @ jnp.linalg.inv(m).T            # [N,3] = (a, b, c)
+        coef = jnp.matmul(rel, jnp.linalg.inv(m).T,   # [N,3] = (a, b, c)
+                          precision=jax.lax.Precision.HIGHEST)
         c_ = coef[..., 2]
         x = coef[..., 0] / jnp.where(jnp.abs(c_) > 1e-9, c_, 1e-9)
         y = coef[..., 1] / jnp.where(jnp.abs(c_) > 1e-9, c_, 1e-9)

@@ -17,28 +17,19 @@ RenderControl::setCanceled checked in the pass loop).
 """
 from __future__ import annotations
 
-import os
-
-import jax
 import numpy as np
 
 from . import film as F
 from . import params as P
 from .integrators.mc import make_integrator
 from .render import AAParams, render
+from .utils.cache import setup_compile_cache
 from .utils.logger import RenderControl
 
 # Persistent XLA compile cache for embedded sessions: every C client is a
 # fresh process that would otherwise recompile the whole render pipeline
-# (the dominant cost of the tiny test scenes). Opt out with
-# YAFARAY_TPU_CACHE_DIR="".
-_cache_dir = os.environ.get(
-    "YAFARAY_TPU_CACHE_DIR",
-    os.path.join(os.path.expanduser("~"), ".cache", "yafaray_tpu_xla"))
-if _cache_dir:
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+# (the dominant cost of the tiny test scenes).
+setup_compile_cache()
 
 
 def _aa_params(pm: P.ParamMap) -> AAParams:

@@ -61,11 +61,13 @@ _XYZ_TO_RGB = np.array(
 
 
 def linear_to_xyz(rgb: Array) -> Array:
-    return jnp.einsum("ij,...j->...i", _RGB_TO_XYZ, rgb)
+    return jnp.einsum("ij,...j->...i", _RGB_TO_XYZ, rgb,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def xyz_to_linear(xyz: Array) -> Array:
-    return jnp.einsum("ij,...j->...i", _XYZ_TO_RGB, xyz)
+    return jnp.einsum("ij,...j->...i", _XYZ_TO_RGB, xyz,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def to_output_space(rgb: Array, color_space: int, gamma: float = 1.0) -> Array:

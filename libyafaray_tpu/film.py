@@ -6,7 +6,7 @@ filters (imagefilm.cc:133-162 builds a lookup table; we evaluate the kernels
 directly per tap — cheap on the VPU), and film checkpoint/merge. Splatting is
 a deterministic `scatter-add` over the whole wavefront instead of the
 reference's mutex-hazard per-thread splat (imagefilm.cc:677-721); multi-chip
-film merge is a `psum` (the TPU analogue of imageFilmLoadAllInFolder's
+film merge is a `psum` (the device-mesh analogue of imageFilmLoadAllInFolder's
 weight+color summation, imagefilm.cc:940-1008).
 """
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .utils import struct
 
 Array = jax.Array
 

@@ -1,6 +1,6 @@
 """Wavefront bidirectional path tracer (BDPT).
 
-TPU-native re-design of the reference BidirectionalIntegrator
+Wavefront re-design of the reference BidirectionalIntegrator
 (src/integrator/surface/integrator_bidirectional.cc: createPath /
 connectPaths / evalPath / pathWeight, include/integrator/surface/
 integrator_bidirectional.h:53-65; flagged UNSTABLE in the reference factory,
@@ -566,10 +566,8 @@ def integrate_bidir(scene: SceneData, cfg, ray_o: Array, ray_d: Array,
     # light vertex through a sampled thin-lens point; the reference's
     # connectPathE has no pinhole restriction either,
     # integrator_bidirectional.h:57-58)
-    import os
     do_splat = (org is not None and scene.camera is not None
-                and scene.camera.kind == "perspective"
-                and os.environ.get("YAF_TPU_BDPT_SPLAT", "1") != "0")
+                and scene.camera.kind == "perspective")
     t0_ok = None
     if do_splat:
         t0_ok = jnp.ones((n,), bool)

@@ -12,7 +12,6 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..materials import bsdf as B
 from ..math import vec

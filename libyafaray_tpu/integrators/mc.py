@@ -1,6 +1,6 @@
 """Wavefront Monte Carlo surface integrators: direct lighting + path tracing.
 
-The TPU-native re-design of the reference's recursive per-pixel integrators:
+The wavefront re-design of the reference's recursive per-pixel integrators:
   - DirectLightIntegrator (integrator_direct_light.cc): emit + NEE + AO +
     specular recursion, no diffuse indirect;
   - PathIntegrator (integrator_path_tracer.cc:120-267): NEE every bounce,
@@ -18,7 +18,7 @@ from typing import Dict, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from .. import color as C
 from .. import lights as L

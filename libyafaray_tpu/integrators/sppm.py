@@ -16,7 +16,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from .. import film as F
 from .. import photon as PH

@@ -5,7 +5,7 @@ SingleScatterIntegrator integrator_single_scatter.cc, SkyIntegrator
 integrator_sky.cc). The reference ray-marches each camera ray with a
 per-ray adaptive step; here the march is a fixed-step lax-unrolled loop over
 the whole wavefront (static step count, masked segment bounds) — identical
-estimator, TPU-shaped control flow. Applied by the surface integrator like
+estimator, wavefront-shaped control flow. Applied by the surface integrator like
 the reference's applyVolumetricEffects (integrator_tiled.cc:694):
     L = transmittance(segment) * L_surface + L_volume(segment).
 """
@@ -68,7 +68,7 @@ def in_scatter(scene: SceneData, o: Array, d: Array, t_hit: Array,
     One light sample per march step (uniform light pick), shadowed through
     scene geometry.
 
-    `substeps > 1` is the TPU-shaped equivalent of the reference's
+    `substeps > 1` is the wavefront-shaped equivalent of the reference's
     adaptive marching (integrator_single_scatter.cc:303-334, param
     "adaptive"): the reference marches coarse steps where accumulated
     density is flat and refines to fine steps where it varies — fewer
@@ -305,13 +305,16 @@ def sky_in_scatter(scene: SceneData, cfg, o: Array, d: Array, t_hit: Array,
                    jnp.sin(theta) * jnp.sin(phi),
                    jnp.cos(theta) * jnp.ones_like(phi)], -1).reshape(-1, 3)
     l_s = eval_background(scene, w)                       # [24, 3]
-    cos_wd = jnp.einsum("kc,nc->nk", w, d)                # [n, 24]
+    cos_wd = jnp.einsum("kc,nc->nk", w, d,
+                        precision=jax.lax.Precision.HIGHEST)  # [n, 24]
     b_r_ang = b_r * 3.0 / (2.0 * jnp.pi * 8.0) * (1.0 + cos_wd ** 2)
     ang_deg = jnp.degrees(jnp.arccos(jnp.clip(cos_wd, -1.0, 1.0)))
     mie = jnp.interp(ang_deg, _MIE_DEG, _MIE_VAL)
     b_m_ang = b_m / (2.0 * 0.67 * jnp.pi) * mie
-    s0_r = jnp.einsum("nk,kc->nc", b_r_ang, l_s) / 24.0   # [n, 3]
-    s0_m = jnp.einsum("nk,kc->nc", b_m_ang, l_s) / 24.0
+    s0_r = jnp.einsum("nk,kc->nc", b_r_ang, l_s,
+                      precision=jax.lax.Precision.HIGHEST) / 24.0   # [n, 3]
+    s0_m = jnp.einsum("nk,kc->nc", b_m_ang, l_s,
+                      precision=jax.lax.Precision.HIGHEST) / 24.0
 
     cos_t = d[..., 2]
     h0 = o[..., 2] * sc

@@ -19,7 +19,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from .. import params as P
 from ..math import vec

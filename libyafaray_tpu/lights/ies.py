@@ -8,7 +8,7 @@ bilinear lookup).  Horizontal symmetry (Type C files measured over 0-90
 or 0-180 degrees) is unfolded to the full 0-360 range at parse time per
 the LM-63 conventions the reference's getRadiance() folding implements
 (light_ies_data.h:53-100), so the runtime lookup is a plain periodic
-bilinear fetch - no data-dependent branching on the TPU.
+bilinear fetch - no data-dependent branching per lane.
 """
 from __future__ import annotations
 

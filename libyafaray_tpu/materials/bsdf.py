@@ -1,6 +1,6 @@
 """Branchless vectorized BSDF table: eval / sample / pdf / emit / transparency.
 
-TPU-native replacement for the reference Material class hierarchy
+Wavefront replacement for the reference Material class hierarchy
 (src/material/material_*.cc, interface include/material/material.h:94-154).
 Instead of virtual dispatch per hit, every material model is expressed as a
 combination of five *lobes* evaluated with masks over the whole wavefront:
@@ -26,7 +26,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..ops.fast_grad import take as fast_take
 
@@ -86,8 +86,8 @@ class MP:
 
 def gather_mp(mats: MaterialTable, mat_id: Array) -> MP:
     # fast-gradient gathers: parameter gradients reduce onto the small
-    # material table via one-hot MXU matmuls instead of per-column
-    # scatter-adds (ops/fast_grad.py)
+    # material table via one-hot matmuls instead of per-column
+    # scatter-adds onto a few rows (ops/fast_grad.py)
     return MP(
         present=mats.present_types, has_oren=mats.has_oren,
         has_aniso=mats.has_aniso, has_fresnel=mats.has_fresnel,

@@ -42,7 +42,8 @@ def _tex_coords(scene: SceneData, sp, i: int, p: Array = None):
     else:                # global / window / transformed
         pt = pos
     mtx = pf[:16].reshape(4, 4)
-    pt = pt @ mtx[:3, :3].T + mtx[:3, 3]
+    pt = jnp.matmul(pt, mtx[:3, :3].T,
+                    precision=jax.lax.Precision.HIGHEST) + mtx[:3, 3]
     # axis remap proj_x/y/z in {0=none,1=x,2=y,3=z}
     axes = []
     for k in (2, 3, 4):

@@ -48,9 +48,8 @@ def _slots(scene: SceneData, sp):
 
 def _pick_col(tab: Array, idx: Array) -> Array:
     """Per-lane column pick from [N, S(, C)] as a one-hot masked sum:
-    dynamic second-index gathers lower ~600x under HBM bandwidth on TPU
-    (see textures/image.py); the node-slot count S is small so the dense
-    masked sum is VPU-cheap."""
+    the node-slot count S is small, so the dense masked sum costs a few
+    elementwise ops per lane instead of a dynamic second-index gather."""
     onehot = idx[:, None] == jnp.arange(tab.shape[1])[None, :]
     if tab.ndim == 3:
         onehot = onehot[..., None]

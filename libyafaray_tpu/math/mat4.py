@@ -1,5 +1,9 @@
 """4x4 affine transforms (batched), replacing reference `Matrix4`
 (src/geometry/matrix4.cc). Used for instances, cameras, and texture mappings.
+
+The products are elementwise multiply-sums, not dots: an f32 dot may run
+in TF32 on a GPU (about three decimal digits), and a transformed point
+feeds ray hit distances, which need full f32.
 """
 from __future__ import annotations
 
@@ -14,16 +18,16 @@ IDENTITY = np.eye(4, dtype=np.float32)
 
 def transform_point(m: Array, p: Array) -> Array:
     """Apply affine matrix m [...,4,4] to points p [...,3]."""
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], p) + m[..., :3, 3]
+    return jnp.sum(m[..., :3, :3] * p[..., None, :], axis=-1) + m[..., :3, 3]
 
 
 def transform_vector(m: Array, v: Array) -> Array:
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], v)
+    return jnp.sum(m[..., :3, :3] * v[..., None, :], axis=-1)
 
 
 def transform_normal(m_inv: Array, n: Array) -> Array:
     """Normals transform by the inverse-transpose of the linear part."""
-    return jnp.einsum("...ji,...j->...i", m_inv[..., :3, :3], n)
+    return jnp.sum(m_inv[..., :3, :3] * n[..., :, None], axis=-2)
 
 
 def inverse(m: Array) -> Array:

@@ -1,9 +1,9 @@
 """Vector math over trailing-3 axes.
 
-TPU-native replacement for the reference's `Vec3/Point3` scalar classes
+Wavefront replacement for the reference's `Vec3/Point3` scalar classes
 (reference: include/geometry/vector.h, src/geometry/vector.cc). Everything here
 operates on batched arrays of shape [..., 3] so the whole wavefront of rays is
-processed by the VPU at once; there is no per-ray scalar code anywhere.
+processed at once; there is no per-ray scalar code anywhere.
 """
 from __future__ import annotations
 

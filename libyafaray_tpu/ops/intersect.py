@@ -1,12 +1,14 @@
 """Ray-scene intersection: batched Möller-Trumbore + sphere tests.
 
-The brute-force path (`accel_kind="brute"`) is the correctness oracle, the
-TPU-native analogue of the reference's `AcceleratorSimpleTest`
-(src/accelerator/accelerator_simple_test.cc): a `lax.scan` over triangle
-chunks with the full wavefront of rays tested per chunk — dense [N_rays x
-CHUNK] VPU work with zero divergence. The production path dispatches to the
-LBVH traversal in accel/lbvh.py (replacing src/accelerator/accelerator_kdtree
-.cc's pointer-chasing kd-tree).
+The brute-force path (`accel_kind="brute"`) is the analogue of the
+reference's `AcceleratorSimpleTest`
+(src/accelerator/accelerator_simple_test.cc). On a GPU it runs the fused
+Pallas (Triton) kernel in accel/pallas_intersect.py; everywhere else a
+`lax.scan` over triangle chunks with the full wavefront of rays tested per
+chunk — dense [N_rays x CHUNK] work with zero divergence, and the plain
+reference the kernel is tested against. Larger scenes dispatch to the
+block accelerator (accel/blocks.py) or the LBVH (accel/lbvh.py), replacing
+src/accelerator/accelerator_kdtree.cc's pointer-chasing kd-tree.
 
 Triangle test: Möller-Trumbore, same algorithm as the reference's
 TrianglePrimitive::intersect (src/geometry/primitive/primitive_triangle.cc:
@@ -19,7 +21,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..math import vec
 from ..scene_types import Geometry, SceneData
@@ -31,7 +33,7 @@ MAX_TRI_CHUNK = 512  # upper bound on triangles per scan step
 
 def _tri_chunk(f: int) -> int:
     """Chunk width for the brute-force scan: small scenes pad only to the
-    128-lane VPU width instead of a fixed 512 (a 36-tri cornell otherwise
+    next multiple of 128 instead of a fixed 512 (a 36-tri cornell otherwise
     wastes 14x of its MT tests on padding)."""
     return min(MAX_TRI_CHUNK, max(128, -(-f // 128) * 128))
 
@@ -90,18 +92,137 @@ def intersect_sphere(o: Array, d: Array, center: Array, radius: Array,
     return hit, t
 
 
-PALLAS_MAX_TRIS = 16384  # above this the packed table leaves VMEM; use blocks
+def _kernel_branch(geom: Geometry, o, d, t_min, best_t, exclude,
+                   shadow: bool, time):
+    """Triangle pass of the brute query through the Triton kernel."""
+    from ..accel.pallas_intersect import mt_query, pack_tris
+    fc = geom.faces
+    keys = [geom.vertices]
+    if time is not None:     # motion keyframes (none for a static scene)
+        keys += [vt for vt in (geom.vertices_t1, geom.vertices_t2)
+                 if vt is not None]
+    tabs = [pack_tris(vt[fc[:, 0]], vt[fc[:, 1]], vt[fc[:, 2]],
+                      geom.face_vis) for vt in keys]
+    bt, bp, bu, bv = mt_query(tabs[0], o, d, t_min, best_t, exclude, time,
+                              *tabs[1:], shadow=shadow)
+    return jnp.where(bp >= 0, bt, best_t), bp, jnp.stack([bu, bv], axis=-1)
 
 
-def _pallas_ok(geom: Geometry) -> bool:
-    from ..accel.pallas_intersect import use_pallas
-    return use_pallas() and 0 < geom.num_faces <= PALLAS_MAX_TRIS
+def _scan_branch(geom: Geometry, o, d, t_min, best_t, exclude_prim,
+                 shadow: bool, time):
+    """Triangle pass of the brute query as a jnp scan over triangle chunks
+    (every backend but the GPU, and the kernel's plain reference)."""
+    n = o.shape[0]
+    f = geom.num_faces
+    vis_bit = 2 if shadow else 1
+    motion = geom.has_motion and time is not None
+    best_prim = jnp.full((n,), -1, jnp.int32)
+    best_uv = jnp.zeros((n, 2), jnp.float32)
+    v0, v1, v2 = _gather_tri_verts(geom)
+    motion2 = motion and geom.vertices_t2 is not None
+    if motion:
+        vb = geom.vertices_t1
+        fc = geom.faces
+        v0b, v1b, v2b = vb[fc[:, 0]], vb[fc[:, 1]], vb[fc[:, 2]]
+        if motion2:
+            vc = geom.vertices_t2
+            v0c, v1c, v2c = vc[fc[:, 0]], vc[fc[:, 1]], vc[fc[:, 2]]
+    fvis = (geom.face_vis & vis_bit) != 0
+    chunk = _tri_chunk(f)
+    pad = (-f) % chunk
+    if pad:
+        padv = jnp.full((pad, 3), jnp.nan, jnp.float32)
+        v0 = jnp.concatenate([v0, padv])
+        v1 = jnp.concatenate([v1, padv])
+        v2 = jnp.concatenate([v2, padv])
+        if motion:
+            v0b = jnp.concatenate([v0b, padv])
+            v1b = jnp.concatenate([v1b, padv])
+            v2b = jnp.concatenate([v2b, padv])
+            if motion2:
+                v0c = jnp.concatenate([v0c, padv])
+                v1c = jnp.concatenate([v1c, padv])
+                v2c = jnp.concatenate([v2c, padv])
+        fvis = jnp.concatenate([fvis, jnp.zeros((pad,), bool)])
+    steps = (f + pad) // chunk
+    v0 = v0.reshape(steps, chunk, 3)
+    v1 = v1.reshape(steps, chunk, 3)
+    v2 = v2.reshape(steps, chunk, 3)
+    if motion:
+        v0b = v0b.reshape(steps, chunk, 3)
+        v1b = v1b.reshape(steps, chunk, 3)
+        v2b = v2b.reshape(steps, chunk, 3)
+        if motion2:
+            v0c = v0c.reshape(steps, chunk, 3)
+            v1c = v1c.reshape(steps, chunk, 3)
+            v2c = v2c.reshape(steps, chunk, 3)
+        tt_ray = jnp.asarray(time, jnp.float32)[:, None, None]
+    fvis = fvis.reshape(steps, chunk)
+    base_ids = jnp.arange(chunk, dtype=jnp.int32)
+    ob = o[:, None, :]
+    db = d[:, None, :]
+    tmin_b = jnp.asarray(t_min, jnp.float32)[..., None]
+
+    def step(carry, chunk_in):
+        bt, bp, buv = carry
+        if motion2:
+            (cv0, cv1, cv2, cb0, cb1, cb2, cc0, cc1, cc2, cvis,
+             coff) = chunk_in
+            # quadratic b-spline over 3 control points (the reference's
+            # BsTrianglePrimitive, primitive_triangle_bspline.cc:40-44)
+            w0 = (1 - tt_ray) * (1 - tt_ray)
+            w1 = 2.0 * tt_ray * (1 - tt_ray)
+            w2 = tt_ray * tt_ray
+            a0 = cv0[None] * w0 + cb0[None] * w1 + cc0[None] * w2
+            a1 = cv1[None] * w0 + cb1[None] * w1 + cc1[None] * w2
+            a2 = cv2[None] * w0 + cb2[None] * w1 + cc2[None] * w2
+            hit, t, u, v = moller_trumbore(ob, db, a0, a1, a2,
+                                           tmin_b, bt[:, None])
+        elif motion:
+            cv0, cv1, cv2, cb0, cb1, cb2, cvis, coff = chunk_in
+            # per-ray shutter time interpolation (BsTrianglePrimitive
+            # analogue, 2-keyframe lerp)
+            a0 = cv0[None] * (1 - tt_ray) + cb0[None] * tt_ray
+            a1 = cv1[None] * (1 - tt_ray) + cb1[None] * tt_ray
+            a2 = cv2[None] * (1 - tt_ray) + cb2[None] * tt_ray
+            hit, t, u, v = moller_trumbore(ob, db, a0, a1, a2,
+                                           tmin_b, bt[:, None])
+        else:
+            cv0, cv1, cv2, cvis, coff = chunk_in
+            hit, t, u, v = moller_trumbore(ob, db, cv0[None], cv1[None],
+                                           cv2[None], tmin_b, bt[:, None])
+        ids = base_ids[None, :] + coff
+        hit = hit & cvis[None, :] & (ids != exclude_prim[:, None])
+        t = jnp.where(hit, t, jnp.inf)
+        j = jnp.argmin(t, axis=1)
+        rows = jnp.arange(n)
+        tj = t[rows, j]
+        better = tj < bt
+        bt = jnp.where(better, tj, bt)
+        bp = jnp.where(better, base_ids[j] + coff, bp)
+        buv = jnp.where(better[:, None],
+                        jnp.stack([u[rows, j], v[rows, j]], axis=-1), buv)
+        return (bt, bp, buv), None
+
+    offs = jnp.arange(steps, dtype=jnp.int32) * chunk
+    if motion2:
+        xs = (v0, v1, v2, v0b, v1b, v2b, v0c, v1c, v2c, fvis, offs)
+    elif motion:
+        xs = (v0, v1, v2, v0b, v1b, v2b, fvis, offs)
+    else:
+        xs = (v0, v1, v2, fvis, offs)
+    (best_t, best_prim, best_uv), _ = jax.lax.scan(
+        step, (best_t, best_prim, best_uv), xs)
+    return best_t, best_prim, best_uv
 
 
 def _brute_closest(geom: Geometry, o: Array, d: Array, t_min: Array,
                    t_max: Array, exclude_prim: Optional[Array] = None,
                    shadow: bool = False,
                    time: Optional[Array] = None) -> Hit:
+    """Brute-force query. The triangle pass is chosen by the platform the
+    computation is lowered for: the Triton kernel on CUDA, the jnp scan
+    elsewhere (no runtime probe, no fallback)."""
     if geom.inst_mat is not None:
         raise NotImplementedError(
             "brute-force intersection does not expand TRUE instances; "
@@ -113,140 +234,15 @@ def _brute_closest(geom: Geometry, o: Array, d: Array, t_min: Array,
     best_prim = jnp.full((n,), -1, jnp.int32)
     best_uv = jnp.zeros((n, 2), jnp.float32)
     f = geom.num_faces
-    motion = geom.has_motion and time is not None
-    if f > 0 and _pallas_ok(geom):
-        # fused Pallas kernel: VMEM-resident triangle table, no HBM
-        # intermediates (accel/pallas_intersect.py)
-        from ..accel.pallas_intersect import mt_closest, pack_tris
-        if geom.tri_table is not None:
-            tris = geom.tri_table            # packed once at scene compile
-        else:
-            v0, v1, v2 = _gather_tri_verts(geom)
-            tris = pack_tris(v0, v1, v2, geom.face_vis)
-        tris_t1 = tris_t2 = None
-        tq = None
-        if motion:
-            fc = geom.faces
-            if geom.tri_table_t1 is not None:
-                tris_t1 = geom.tri_table_t1
-            else:
-                vb = geom.vertices_t1
-                tris_t1 = pack_tris(vb[fc[:, 0]], vb[fc[:, 1]], vb[fc[:, 2]],
-                                    geom.face_vis)
-            if geom.tri_table_t2 is not None:
-                tris_t2 = geom.tri_table_t2
-            elif geom.vertices_t2 is not None:
-                vc = geom.vertices_t2
-                tris_t2 = pack_tris(vc[fc[:, 0]], vc[fc[:, 1]], vc[fc[:, 2]],
-                                    geom.face_vis)
-            tq = jnp.asarray(time, jnp.float32)
+    if f > 0:
+        tmin_v = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (n,))
         excl = (exclude_prim if exclude_prim is not None
                 else jnp.full((n,), -1, jnp.int32))
-        tmin_v = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (n,))
-        bt, bp, bu, bv = mt_closest(tris, o, d, tmin_v, best_t,
-                                    excl, time=tq, tris_t1=tris_t1,
-                                    tris_t2=tris_t2, shadow=shadow)
-        best_t = jnp.where(bp >= 0, bt, best_t)
-        best_prim = bp
-        best_uv = jnp.stack([bu, bv], axis=-1)
-    elif f > 0:
-        v0, v1, v2 = _gather_tri_verts(geom)
-        motion2 = motion and geom.vertices_t2 is not None
-        if motion:
-            vb = geom.vertices_t1
-            fc = geom.faces
-            v0b, v1b, v2b = vb[fc[:, 0]], vb[fc[:, 1]], vb[fc[:, 2]]
-            if motion2:
-                vc = geom.vertices_t2
-                v0c, v1c, v2c = vc[fc[:, 0]], vc[fc[:, 1]], vc[fc[:, 2]]
-        fvis = (geom.face_vis & vis_bit) != 0
-        chunk = _tri_chunk(f)
-        pad = (-f) % chunk
-        if pad:
-            padv = jnp.full((pad, 3), jnp.nan, jnp.float32)
-            v0 = jnp.concatenate([v0, padv])
-            v1 = jnp.concatenate([v1, padv])
-            v2 = jnp.concatenate([v2, padv])
-            if motion:
-                v0b = jnp.concatenate([v0b, padv])
-                v1b = jnp.concatenate([v1b, padv])
-                v2b = jnp.concatenate([v2b, padv])
-                if motion2:
-                    v0c = jnp.concatenate([v0c, padv])
-                    v1c = jnp.concatenate([v1c, padv])
-                    v2c = jnp.concatenate([v2c, padv])
-            fvis = jnp.concatenate([fvis, jnp.zeros((pad,), bool)])
-        steps = (f + pad) // chunk
-        v0 = v0.reshape(steps, chunk, 3)
-        v1 = v1.reshape(steps, chunk, 3)
-        v2 = v2.reshape(steps, chunk, 3)
-        if motion:
-            v0b = v0b.reshape(steps, chunk, 3)
-            v1b = v1b.reshape(steps, chunk, 3)
-            v2b = v2b.reshape(steps, chunk, 3)
-            if motion2:
-                v0c = v0c.reshape(steps, chunk, 3)
-                v1c = v1c.reshape(steps, chunk, 3)
-                v2c = v2c.reshape(steps, chunk, 3)
-            tt_ray = jnp.asarray(time, jnp.float32)[:, None, None]
-        fvis = fvis.reshape(steps, chunk)
-        base_ids = jnp.arange(chunk, dtype=jnp.int32)
-        ob = o[:, None, :]
-        db = d[:, None, :]
-        tmin_b = jnp.asarray(t_min, jnp.float32)[..., None]
-
-        def step(carry, chunk_in):
-            bt, bp, buv = carry
-            if motion2:
-                (cv0, cv1, cv2, cb0, cb1, cb2, cc0, cc1, cc2, cvis,
-                 coff) = chunk_in
-                # quadratic b-spline over 3 control points (the reference's
-                # BsTrianglePrimitive, primitive_triangle_bspline.cc:40-44)
-                w0 = (1 - tt_ray) * (1 - tt_ray)
-                w1 = 2.0 * tt_ray * (1 - tt_ray)
-                w2 = tt_ray * tt_ray
-                a0 = cv0[None] * w0 + cb0[None] * w1 + cc0[None] * w2
-                a1 = cv1[None] * w0 + cb1[None] * w1 + cc1[None] * w2
-                a2 = cv2[None] * w0 + cb2[None] * w1 + cc2[None] * w2
-                hit, t, u, v = moller_trumbore(ob, db, a0, a1, a2,
-                                               tmin_b, bt[:, None])
-            elif motion:
-                cv0, cv1, cv2, cb0, cb1, cb2, cvis, coff = chunk_in
-                # per-ray shutter time interpolation (BsTrianglePrimitive
-                # analogue, 2-keyframe lerp)
-                a0 = cv0[None] * (1 - tt_ray) + cb0[None] * tt_ray
-                a1 = cv1[None] * (1 - tt_ray) + cb1[None] * tt_ray
-                a2 = cv2[None] * (1 - tt_ray) + cb2[None] * tt_ray
-                hit, t, u, v = moller_trumbore(ob, db, a0, a1, a2,
-                                               tmin_b, bt[:, None])
-            else:
-                cv0, cv1, cv2, cvis, coff = chunk_in
-                hit, t, u, v = moller_trumbore(ob, db, cv0[None], cv1[None],
-                                               cv2[None], tmin_b, bt[:, None])
-            ids = base_ids[None, :] + coff
-            hit = hit & cvis[None, :]
-            if exclude_prim is not None:
-                hit = hit & (ids != exclude_prim[:, None])
-            t = jnp.where(hit, t, jnp.inf)
-            j = jnp.argmin(t, axis=1)
-            rows = jnp.arange(n)
-            tj = t[rows, j]
-            better = tj < bt
-            bt = jnp.where(better, tj, bt)
-            bp = jnp.where(better, base_ids[j] + coff, bp)
-            buv = jnp.where(better[:, None],
-                            jnp.stack([u[rows, j], v[rows, j]], axis=-1), buv)
-            return (bt, bp, buv), None
-
-        offs = jnp.arange(steps, dtype=jnp.int32) * chunk
-        if motion2:
-            xs = (v0, v1, v2, v0b, v1b, v2b, v0c, v1c, v2c, fvis, offs)
-        elif motion:
-            xs = (v0, v1, v2, v0b, v1b, v2b, fvis, offs)
-        else:
-            xs = (v0, v1, v2, fvis, offs)
-        (best_t, best_prim, best_uv), _ = jax.lax.scan(
-            step, (best_t, best_prim, best_uv), xs)
+        tq = jnp.asarray(time, jnp.float32) if time is not None else None
+        best_t, best_prim, best_uv = jax.lax.platform_dependent(
+            o, d, tmin_v, best_t, excl,
+            cuda=lambda *a: _kernel_branch(geom, *a, shadow, tq),
+            default=lambda *a: _scan_branch(geom, *a, shadow, tq))
     s = geom.num_spheres
     if s > 0:
         hit, t = intersect_sphere(
@@ -272,10 +268,9 @@ def _brute_closest(geom: Geometry, o: Array, d: Array, t_min: Array,
 def _brute_any(geom: Geometry, o: Array, d: Array, t_min: Array,
                t_max: Array, exclude_prim: Optional[Array] = None,
                time: Optional[Array] = None) -> Array:
-    """Boolean shadow query (reference Accelerator::intersectS).
-
-    Brute force has no early-out to exploit on SIMD hardware; the closest-hit
-    scan already short-circuits nothing, so reuse it."""
+    """Boolean shadow query (reference Accelerator::intersectS): the
+    closest-hit query over shadow-casting primitives (an early exit
+    measured slower than the full loop, see accel/pallas_intersect.py)."""
     hit = _brute_closest(geom, o, d, t_min, t_max, exclude_prim, shadow=True,
                          time=time)
     return hit.valid

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..math import vec
 from ..scene_types import SceneData

@@ -1,7 +1,6 @@
-"""Multi-chip / multi-host scaling: shard_map over a device mesh.
+"""Multi-device / multi-host scaling: shard_map over a device mesh.
 
-TPU-native replacement for the reference's two parallelism layers
-(SURVEY.md §2.15):
+Replacement for the reference's two parallelism layers (SURVEY.md §2.15):
 
   - tile data-parallelism — N std::thread workers pulling 32-px tiles from a
     mutex work queue (src/integrator/surface/integrator_tiled.cc:246-264,
@@ -16,7 +15,9 @@ TPU-native replacement for the reference's two parallelism layers
     comes free from the counter-based sampler keyed on absolute pixel id.
 
 Gradients of scene parameters (inverse rendering) are all-reduced by the
-same `psum` — one collective per training step, riding ICI.
+same `psum` — one collective per training step. The mesh is 1-D: the
+cards of a host are joined all to all (NVLink), so no device order is
+better than another.
 """
 from __future__ import annotations
 
@@ -97,6 +98,23 @@ def render_wavefront_sharded(scene: SceneData, cfg: IntegratorConfig,
     return rgb, alpha
 
 
+@functools.partial(jax.jit, static_argnums=(1, 3, 4, 5),
+                   donate_argnums=(2,))
+def _sharded_pass(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
+                  height: int, width: int, mesh: Mesh, s: Array) -> F.Film:
+    """One sharded sample pass accumulated into the film (jitted once per
+    scene structure, config, size and mesh; the scene is an argument, not
+    a baked-in constant)."""
+    rgb, alpha = render_wavefront_sharded(scene, cfg, height, width, s, mesh)
+    img = jnp.concatenate([rgb, alpha[..., None]], -1)
+    yy, xx = jnp.meshgrid(jnp.arange(height), jnp.arange(width),
+                          indexing="ij")
+    return F.add_samples(film, xx.reshape(-1).astype(jnp.float32) + 0.5,
+                         yy.reshape(-1).astype(jnp.float32) + 0.5,
+                         {"combined": img},
+                         jnp.ones((height * width,), jnp.float32))
+
+
 def render_sharded(scene: SceneData, cfg: IntegratorConfig, width: int,
                    height: int, spp: int, mesh: Mesh,
                    film: Optional[F.Film] = None) -> F.Film:
@@ -104,22 +122,10 @@ def render_sharded(scene: SceneData, cfg: IntegratorConfig, width: int,
     analogue of render.render)."""
     if film is None:
         film = F.make_film(width, height, ("combined",))
-
-    @functools.partial(jax.jit, donate_argnums=(0,))
-    def one_pass(film, s):
-        rgb, alpha, = render_wavefront_sharded(
-            scene, cfg, height, width, s, mesh)[:2]
-        img = jnp.concatenate([rgb, alpha[..., None]], -1)
-        yy, xx = jnp.meshgrid(jnp.arange(height), jnp.arange(width),
-                              indexing="ij")
-        return F.add_samples(film, xx.reshape(-1).astype(jnp.float32) + 0.5,
-                             yy.reshape(-1).astype(jnp.float32) + 0.5,
-                             {"combined": img},
-                             jnp.ones((height * width,), jnp.float32))
-
     with mesh:
         for s in range(spp):
-            film = one_pass(film, jnp.uint32(s))
+            film = _sharded_pass(scene, cfg, film, height, width, mesh,
+                                 jnp.uint32(s))
     return film
 
 
@@ -133,8 +139,8 @@ def make_train_step(cfg: IntegratorConfig, height: int, width: int,
 
     The loss is the image MSE of one rendered sample pass against a target;
     pixels are sharded over the mesh (dp), the scalar loss and the parameter
-    gradients are `psum`'d — the gradient all-reduce is the only collective
-    and rides ICI. Returns step(scene, params, target, sample_idx) ->
+    gradients are `psum`'d — the gradient all-reduce is the only
+    collective. Returns step(scene, params, target, sample_idx) ->
     (params, loss) where params is a dict of MaterialTable field overrides
     (e.g. {"diffuse_color": f32[M,3]})."""
 

@@ -1,13 +1,14 @@
 """Multi-host entry point: process-level distribution over DCN.
 
-The TPU-native analogue of the reference's render farm
+The analogue of the reference's render farm
 (SURVEY.md par.2.15): N yafaray processes each render with a
 decorrelated sample stream and their films are summed
 (imageFilmLoadAllInFolder, src/render/imagefilm.cc:940-1008). Here:
 
   - `init_distributed()` wraps `jax.distributed.initialize` so every
-    process sees the global device set; in-process scaling then uses the
-    mesh collectives (parallel.render_sharded) over ICI, while
+    process sees the global device set (each process owning its own
+    card); in-process scaling then uses the mesh collectives
+    (parallel.render_sharded), while
     cross-host film aggregation rides either a psum over the global mesh
     or the film-folder merge below (the DCN fallback that also covers
     heterogeneous / failure-prone farm setups).
@@ -32,10 +33,13 @@ import jax
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> Tuple[int, int]:
-    """Initialize JAX's multi-process runtime. With no arguments, reads
-    the standard env vars (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID, or the cloud-TPU auto-detection). Returns
-    (process_index, process_count). Safe to call once per process before
+    """Initialize JAX's multi-process runtime. Arguments left out are read
+    from JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID;
+    nothing is auto-detected, so a cluster names its coordinator (e.g.
+    `localhost:<port>` on one host). Each process owns the cards it can
+    see (one per process, e.g. through CUDA_VISIBLE_DEVICES): a JAX
+    process reserves most of a card's memory, so two cannot share one.
+    Returns (process_index, process_count). Call once per process before
     any computation."""
     kwargs = {}
     if coordinator_address is None:

@@ -3,7 +3,7 @@
 Replaces src/photon/* (PhotonMap + PointKdTree kNN + HashGrid,
 include/photon/photon.h:112-130, pkdtree.h:77-103, hashgrid.h:36-45) and the
 threaded photon-shooting workers (integrator_photon_mapping.cc:110,
-integrator_montecarlo.cc:614). TPU-native redesign:
+integrator_montecarlo.cc:614). Wavefront redesign:
 
   - shooting is one masked wavefront walk: N photons advance through a
     statically-unrolled bounce loop together (no worker threads, no mutex);
@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .utils import struct
 
 from . import sampler
 from .lights import _has

@@ -15,7 +15,7 @@ from typing import Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .utils import struct
 
 from . import color as C
 from . import film as F
@@ -79,7 +79,7 @@ def _render_ids(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
     # count is the number of lanes that actually traced a light subpath
     # (integrate_bidir masks the light walk by `valid`) — NOT height*width,
     # which under-weighted splats whenever a compacted adaptive pass traced
-    # fewer lanes than the full image (VERDICT r4 weak #6).
+    # fewer lanes than the full image.
     if "splat_px" in aux:
         film = F.add_splats(film, aux.pop("splat_px"), aux.pop("splat_py"),
                             aux.pop("splat_rgb"),

@@ -1,6 +1,6 @@
 """Counter-based sampling for wavefront rendering.
 
-TPU-native replacement for the reference's stateful samplers:
+Wavefront replacement for the reference's stateful samplers:
   - Marsaglia multiply-with-carry RNG (include/math/random.h:56-66)
   - incremental Halton (include/sampler/halton.h:30-67)
   - van-der-Corput / Sobol riS / Larcher-Pillichshammer riLp with FNV hash

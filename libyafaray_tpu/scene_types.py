@@ -1,6 +1,6 @@
 """Device-side scene representation: frozen struct-of-arrays pytrees.
 
-This is the TPU-native replacement for the reference's pointer-based scene
+This is the wavefront replacement for the reference's pointer-based scene
 graph (include/scene/scene.h:64-219 and the Object/Primitive/Material/Light
 class hierarchies). Host-side the `SceneBuilder` (scene.py) keeps the same
 named-entity registries as the reference; `compile()` freezes everything into
@@ -18,7 +18,7 @@ from typing import Any, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .utils import struct
 
 Array = jax.Array
 
@@ -71,7 +71,7 @@ class Geometry:
 
     Replaces MeshObject/TrianglePrimitive/SpherePrimitive/ObjectInstance
     (src/geometry/object/*, src/geometry/primitive/*). Per-face attribute
-    arrays keep gathers coalesced on TPU.
+    arrays keep the wavefront's gathers coalesced.
     """
     vertices: Array        # f32[V, 3]
     normals: Array         # f32[V, 3] per-vertex smooth normals
@@ -105,14 +105,6 @@ class Geometry:
     # mesh streamed them — SurfacePoint then falls back to untransformed
     # object-space positions baked in at compile.
     orcos: Optional[Array] = None         # f32[V, 3]
-    # packed f32[C,16] triangle tables for the fused Pallas intersect kernel
-    # (accel/pallas_intersect.py pack_tris) — built ONCE at scene compile so
-    # per-bounce queries don't re-pay the gather+scatter packing cost
-    # (ADVICE r1); None when the scene is too large for the VMEM-resident
-    # kernel or has no faces.
-    tri_table: Optional[Array] = None     # f32[C, 16]
-    tri_table_t1: Optional[Array] = None  # f32[C, 16] motion keyframe
-    tri_table_t2: Optional[Array] = None  # f32[C, 16] (quadratic bspline)
     # TRUE instancing (reference ObjectInstance/PrimitiveInstance,
     # include/geometry/object/object_instance.h:29-63): per-face arrays
     # above cover only the F0 = num_base_faces PHYSICAL faces; instances
@@ -157,14 +149,15 @@ def resolve_prim(geom: "Geometry", prim: Array):
 def inst_transform_point(geom: "Geometry", inst: Array, p: Array) -> Array:
     """Apply instance matrix (world <- object) to points where inst >= 0."""
     m = geom.inst_mat[jnp.maximum(inst, 0)]             # [N, 3, 4]
-    q = jnp.einsum("nij,nj->ni", m[:, :, :3], p) + m[:, :, 3]
+    # elementwise multiply-sum, not a dot: full f32 on every backend
+    q = jnp.sum(m[:, :, :3] * p[:, None, :], axis=-1) + m[:, :, 3]
     return jnp.where((inst >= 0)[..., None], q, p)
 
 
 def inst_transform_normal(geom: "Geometry", inst: Array, n: Array) -> Array:
     """Rotate normals by the instance's inverse-transpose; renormalized."""
     m = geom.inst_nrm[jnp.maximum(inst, 0)]             # [N, 3, 3]
-    q = jnp.einsum("nij,nj->ni", m, n)
+    q = jnp.sum(m * n[:, None, :], axis=-1)
     q = q / jnp.maximum(
         jnp.linalg.norm(q, axis=-1, keepdims=True), 1e-20)
     return jnp.where((inst >= 0)[..., None], q, n)
@@ -447,7 +440,7 @@ class VolumeTable:
 class BVH:
     """LBVH arrays (accel/lbvh.py): 2*F-1 nodes, leaves reference the
     morton-sorted primitive order. Replaces the SAH kd-tree
-    (src/accelerator/accelerator_kdtree.cc) with a GPU/TPU-classic
+    (src/accelerator/accelerator_kdtree.cc) with a GPU-classic
     Karras-style linear BVH."""
     node_min: Array      # f32[NN, 3]
     node_max: Array      # f32[NN, 3]

@@ -101,8 +101,8 @@ def apply_ramp(pool, tex_id: Array, inten: Array, col: Array) -> Array:
     i1 = jnp.clip(idx + 1, 0, R - 1)
     i1 = jnp.minimum(i1, jnp.maximum(cnt - 1, 0))
 
-    # per-ray column pick as a one-hot masked sum: a dynamic second-index
-    # gather lowers ~600x under HBM bandwidth on TPU (see textures/image.py)
+    # per-ray column pick as a one-hot masked sum over the few columns
+    # instead of a dynamic second-index gather
     def pick(tab, ii):
         onehot = ii[:, None] == jnp.arange(R)[None, :]
         if tab.ndim == 3:

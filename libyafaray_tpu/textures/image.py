@@ -8,10 +8,10 @@ implemented as an 8-tap Gaussian quadrature of trilinear probes placed
 along the exact ellipse major axis (see _sample_ewa below) — the same
 ellipse as the reference's per-texel enumeration (texture_image.cc:345-443)
 integrated with fixed quadrature instead of texel loops, which keeps the
-wavefront access pattern (bulk gathers) TPU-friendly.
+wavefront access pattern regular (bulk gathers).
 
-All gathers are bulk row gathers from the pool — the TPU-friendly access
-pattern (one dynamic-gather per tap for the whole wavefront).
+All gathers are bulk row gathers from the pool (one dynamic-gather per
+tap for the whole wavefront).
 """
 from __future__ import annotations
 
@@ -46,9 +46,8 @@ def _fetch(pool: TexturePool, base: Array, w: Array, h: Array,
     yw, in_y = _wrap(yi, h, extend, my)
     inside = in_x & in_y
     flat = base + yw * w + xw
-    # fast-gradient gather: the texel-pool VJP becomes a chunked one-hot
-    # MXU matmul instead of a ~2.3 ms scatter-add (ops/fast_grad.py;
-    # measured 2.8x on the caustic fwd+bwd config)
+    # texel pools above fast_grad.MATMUL_GRAD_ROWS rows keep the plain
+    # gather and its scatter-add VJP (ops/fast_grad.py)
     texel = fast_take(pool.texel_pool, flat)
     if texel.dtype == jnp.uint8:
         # compressed pool: dequantize (scale applied by the caller per-tex)
@@ -131,7 +130,7 @@ def sample_image(pool: TexturePool, tex_id: Array, uv: Array,
     (interpolation "mipmap_ewa", texture_image.cc:345-443) is realised as
     EWA_TAPS Gaussian-weighted trilinear probes along the footprint's
     major axis with the mip level picked from the minor axis — the
-    fixed-footprint TPU form of the reference's variable-extent texel
+    fixed-footprint wavefront form of the reference's variable-extent texel
     loop (identical ellipse; quadrature instead of texel enumeration)."""
     pf = pool.params_f[tex_id]
     # crop window + repeat counts (texture_image.cc mapping chain)
@@ -160,8 +159,8 @@ def sample_image(pool: TexturePool, tex_id: Array, uv: Array,
     any_ewa = 4 in pool.used_interps
 
     # per-ray mip rows gathered ONCE as [N, L]; the per-ray LEVEL pick is
-    # a one-hot masked sum — a dynamic column select lowers to a ~600x-
-    # under-bandwidth gather on TPU (measured 6.7 ms per f32[518k] pick)
+    # a one-hot masked sum over the few levels instead of a dynamic column
+    # select
     mip_rows = pool.mip_offsets[tex_id] if any_mip else None
 
     def _pick(level_idx):

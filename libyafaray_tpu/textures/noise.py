@@ -4,7 +4,7 @@ Replaces src/texture/noise_generator.cc (Blender-compatible newperlin /
 stdperlin / voronoi F1-F4 / cellnoise and the fBm / turbulence combinators).
 Hash-based lattice noise instead of permutation tables: a counter-based
 integer hash (pcg-style) replaces the table gathers, which keeps the VPU
-busy with ALU work instead of random memory access — the TPU-native trade.
+busy with ALU work instead of random memory access.
 
 All functions take p[..., 3] and return scalars in roughly [0, 1] matching
 the reference generators' ranges (the reference normalizes its noise to

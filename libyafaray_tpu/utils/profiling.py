@@ -4,13 +4,13 @@ The reference has no profiler — only named Timer events ("rendert",
 src/integrator/surface/integrator_tiled.cc:149-150,228), a render-stats
 string (ImageFilm::printRenderStats, include/render/imagefilm.h:153) and
 kd-tree build counters (include/accelerator/accelerator_kdtree.h:85-97).
-This module provides the TPU-native equivalents:
+This module provides the equivalents:
 
   - RenderStats: per-pass wall times + ray counts + rays/s, with a
     printable summary (printRenderStats analogue).
   - trace(): context manager around jax.profiler for XLA device traces.
   - device_op_summary(): parses the captured chrome trace and returns the
-    top device ops by total time — per-kernel attribution on real TPU.
+    top ops on the GPU's streams by total time — per-kernel attribution.
 """
 from __future__ import annotations
 
@@ -113,26 +113,33 @@ class trace:
         return self._cm.__exit__(*exc)
 
 
-def device_op_summary(log_dir: str, top: int = 20,
-                      exclude_host: bool = True
+DEVICE_PREFIX = "/device:GPU"
+
+
+def device_op_summary(log_dir: str, top: int = 20
                       ) -> List[Tuple[str, float, int]]:
     """Parse the chrome trace(s) under `log_dir` and return the top device
-    ops as (name, total_ms, count), heaviest first. Host-side python frames
-    (names starting with '$') are excluded by default."""
+    ops as (name, total_ms, count), heaviest first. Only events of trace
+    processes whose name starts with DEVICE_PREFIX count (the card's
+    streams); host threads, whose spans would otherwise be mixed into
+    device time, are left out."""
     totals: Dict[str, float] = collections.Counter()
     counts: Dict[str, int] = collections.Counter()
     for f in glob.glob(f"{log_dir}/**/*.trace.json.gz", recursive=True):
-        data = json.load(gzip.open(f))
-        for e in data.get("traceEvents", []):
-            if e.get("ph") != "X" or "dur" not in e:
+        with gzip.open(f) as fh:
+            data = json.load(fh)
+        events = data.get("traceEvents", [])
+        device_pids = {
+            e.get("pid") for e in events
+            if e.get("ph") == "M" and e.get("name") == "process_name"
+            and str(e.get("args", {}).get("name", "")).startswith(
+                DEVICE_PREFIX)}
+        for e in events:
+            if (e.get("ph") != "X" or "dur" not in e
+                    or e.get("pid") not in device_pids):
                 continue
             name = e.get("name", "?")
-            if exclude_host and (name.startswith("$")
-                                 or name.startswith("PjitFunction")
-                                 or name.startswith("PJRT_")):
-                continue
             totals[name] += e["dur"]
             counts[name] += 1
-    out = [(n, t / 1000.0, counts[n])
-           for n, t in collections.Counter(totals).most_common(top)]
-    return out
+    return [(n, t / 1000.0, counts[n])
+            for n, t in collections.Counter(totals).most_common(top)]

@@ -1,6 +1,6 @@
 """Build / system metadata — the reference's buildinfo + sysInfo modules
 (src/common/version_build_info.cc, src/common/sysinfo.cc), re-targeted at
-the TPU runtime: compiler/flags become Python/jax/jaxlib versions, the
+the JAX runtime: compiler/flags become Python/jax/jaxlib versions, the
 thread autodetect becomes the XLA device inventory, and the git metadata
 is read from the working tree when available.
 
@@ -80,6 +80,31 @@ def get_devices() -> List[str]:
 
 def get_num_devices() -> int:
     return len(get_devices())
+
+
+def gpu_name_and_power_limit() -> str:
+    """The first card's name and power limit, as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints
+    them (e.g. "NVIDIA H100 80GB HBM3, 700.00 W"). Raises when nvidia-smi
+    is missing or fails: a timing without its card is not reported."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_record() -> Dict[str, object]:
+    """What every measurement names: JAX's platform, device kind and
+    device count, and the card's name and power limit."""
+    import jax
+    devs = jax.devices()
+    rec: Dict[str, object] = {"platform": devs[0].platform,
+                              "kind": devs[0].device_kind,
+                              "count": len(devs)}
+    if rec["platform"] == "gpu":
+        rec["card"] = gpu_name_and_power_limit()
+    return rec
 
 
 def get_ram_gb() -> float:

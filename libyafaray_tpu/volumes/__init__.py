@@ -151,9 +151,12 @@ def sigma_st(scene: SceneData, p: Array):
     """(sigma_s[N,3], sigma_t[N,3], emission[N,3]) at points p."""
     vt = scene.volumes
     d = density(scene, p)  # [N,R]
-    ss = jnp.einsum("nr,rc->nc", d, vt.sigma_s)
-    sa = jnp.einsum("nr,rc->nc", d, vt.sigma_a)
-    em = jnp.einsum("nr,rc->nc", d, vt.emission)
+    ss = jnp.einsum("nr,rc->nc", d, vt.sigma_s,
+                    precision=jax.lax.Precision.HIGHEST)
+    sa = jnp.einsum("nr,rc->nc", d, vt.sigma_a,
+                    precision=jax.lax.Precision.HIGHEST)
+    em = jnp.einsum("nr,rc->nc", d, vt.emission,
+                    precision=jax.lax.Precision.HIGHEST)
     return ss, ss + sa, em
 
 

@@ -1,6 +1,6 @@
 /* yafaray_tpu C public API.
  *
- * The stable extern "C" surface of the TPU-native framework, mirroring the
+ * The stable extern "C" surface of the JAX framework, mirroring the
  * reference's include/public_api/yafaray_c_api.h:31-130 (opaque interface
  * handle, typed parameter staging, geometry streaming, entity factories,
  * RAM images, outputs, layers, render + the full callback set). The

@@ -161,3 +161,22 @@ def test_grad_texture_texels():
     fd = (float(loss_j(pool.at[t, c].add(e)))
           - float(loss_j(pool.at[t, c].add(-e)))) / (2 * e)
     assert float(g[t, c]) == pytest.approx(fd, rel=2e-2, abs=1e-7)
+
+
+@pytest.mark.parametrize("rows", [5, 1366])
+def test_fast_take_gradient_matches_plain_gather(rows):
+    """ops/fast_grad.take: tables up to MATMUL_GRAD_ROWS rows get the
+    one-hot matmul backward, larger ones the plain gather; either way the
+    gradient equals the plain gather's scatter-add VJP."""
+    from libyafaray_tpu.ops import fast_grad
+    rng = np.random.default_rng(rows)
+    tab = jnp.asarray(rng.random((rows, 3)), jnp.float32)
+    idx = jnp.asarray(rng.integers(0, rows, 20000), jnp.int32)
+    w = jnp.asarray(rng.random((20000, 3)), jnp.float32)
+    g_fast = jax.grad(lambda t: jnp.sum(fast_grad.take(t, idx) * w))(tab)
+    g_ref = jax.grad(lambda t: jnp.sum(t[idx] * w))(tab)
+    np.testing.assert_allclose(np.asarray(g_fast), np.asarray(g_ref),
+                               rtol=1e-5, atol=1e-5)
+    custom = "custom_vjp" in str(jax.make_jaxpr(
+        lambda t: fast_grad.take(t, idx))(tab))
+    assert custom == (rows <= fast_grad.MATMUL_GRAD_ROWS)

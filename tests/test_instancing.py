@@ -13,7 +13,7 @@ import pytest
 
 from libyafaray_tpu import SceneBuilder, film as F, make_integrator
 from libyafaray_tpu.render import render
-from libyafaray_tpu.accel.tiles import tiles_traverse
+from libyafaray_tpu.ops import intersect as I
 from libyafaray_tpu.ops.intersect import closest_hit
 
 
@@ -102,12 +102,13 @@ def test_true_instancing_matches_baked():
     np.testing.assert_allclose(img_t, img_b, atol=2e-3)
 
 
-def test_instanced_tiles_kernel_interpret():
-    """The instanced tile-wavefront Pallas kernel (interpret mode) matches
-    the jnp block loop on the same instanced accel."""
+def test_instanced_block_loop_matches_baked_scan():
+    """The instanced jnp block loop (rays moved object<-world per block)
+    finds the hits the brute scan finds on the baked (duplicated)
+    geometry of the same scene."""
     sc = _instanced_builder(n_inst=24).compile("cam")
-    acc = sc.blocks
-    assert acc.blk_base is not None
+    sc_bake = _instanced_builder(n_inst=24, mode="baked").compile("cam")
+    assert sc.blocks.blk_base is not None and sc_bake.geom.inst_mat is None
     rng = np.random.default_rng(11)
     n = 1024
     o = np.stack([rng.uniform(-4, 4, n), rng.uniform(-7, 2, n),
@@ -115,22 +116,16 @@ def test_instanced_tiles_kernel_interpret():
     d = rng.standard_normal((n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o, d = jnp.asarray(o), jnp.asarray(d)
-    t_min = jnp.full((n,), 1e-4)
-    t_max = jnp.full((n,), 1e9)
-    excl = jnp.full((n,), -1, jnp.int32)
 
-    hit_ref = closest_hit(sc, o, d, 1e-4, 1e9)   # jnp block loop on CPU
-    t, p, u, v = tiles_traverse(
-        acc.tab, acc.bmin, acc.bmax, o, d, t_min, t_max, excl,
-        blk_base=acc.blk_base, blk_minv=acc.blk_minv,
-        id_delta=acc.id_delta, inv_rows=acc.inv_rows, interpret=True)
-    p = np.asarray(p)
-    rv = np.asarray(hit_ref.valid)
-    np.testing.assert_array_equal(p >= 0, rv)
-    np.testing.assert_array_equal(np.asarray(p)[rv],
-                                  np.asarray(hit_ref.prim)[rv])
-    np.testing.assert_allclose(np.asarray(t)[rv],
-                               np.asarray(hit_ref.t)[rv],
+    hit = closest_hit(sc, o, d, 1e-4, 1e9)      # instanced block loop
+    ref = I._brute_closest(sc_bake.geom, o, d, jnp.full((n,), 1e-4),
+                           jnp.full((n,), 1e9))
+    rv = np.asarray(ref.valid)
+    assert rv.sum() > n // 4
+    np.testing.assert_array_equal(np.asarray(hit.valid), rv)
+    np.testing.assert_array_equal(np.asarray(hit.prim)[rv],
+                                  np.asarray(ref.prim)[rv])
+    np.testing.assert_allclose(np.asarray(hit.t)[rv], np.asarray(ref.t)[rv],
                                rtol=1e-4, atol=1e-5)
 
 

@@ -8,8 +8,8 @@ Radiance .hdr files, so the comparison happens in radiance units with no
 gamma or 8-bit quantization (RGBE shared-exponent mantissa error ~0.4%).
 
 This closes BASELINE.md config 1's "CPU reference render as golden" and is
-the one form of correctness evidence internal oracles cannot provide
-(VERDICT r4 missing #1): the reference binary is the arbiter.
+the one form of correctness evidence internal oracles cannot provide:
+the reference binary is the arbiter.
 
 ## The pi convention (measured, not assumed)
 
@@ -162,7 +162,7 @@ def _glossy_builder():
 @pytest.mark.timeout(900)
 def test_glossy_textured_matches_reference_render():
     """Textured/glossy scene vs the reference renderer's own output
-    (VERDICT r4 next-step #1, second scene): covers the RAM-image ->
+    (second scene): covers the RAM-image ->
     texture_mapper(uv) shader pipeline, the glossy BSDF, the analytic
     sphere primitive and the multi-bounce path-tracing estimator.
 

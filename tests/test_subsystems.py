@@ -33,7 +33,7 @@ def test_sppm_pm_ire_and_per_pixel_gather_radius():
     """PM_IRE (integrator_sppm.cc:635-649): per-pixel initial radii follow
     local photon density — dense regions get SMALLER radii than sparse
     ones — and the flux gather honors the per-pixel radius exactly
-    (VERDICT r4 missing #2: both were absent/fixed before this round)."""
+    (both were once absent)."""
     import jax.numpy as jnp
     from libyafaray_tpu.integrators.sppm import estimate_initial_radius
     from libyafaray_tpu import photon as PH
@@ -79,7 +79,7 @@ def test_single_scatter_adaptive_substeps():
     coarse in-scatter steps with fine density substeps must track a
     64-step fine march far better than the same 4 steps without substeps
     (the coarse midpoint march entirely misses or smears the slab).
-    Before r5 the substep option did not exist (VERDICT r4 missing #3)."""
+    The substep option once did not exist."""
     import jax.numpy as jnp
     from libyafaray_tpu.integrators.volume import in_scatter
 
